@@ -1,23 +1,19 @@
 """End-to-end ASR-style decoding demo: a real beam search driving lazy masks.
 
 Builds a synthetic word lexicon (left-to-right senone chains), then decodes
-the bundled features three ways through one quantized engine:
+seeded stand-in features (389 x 432, utils.synthetic) three ways through
+one quantized engine:
 
   1. dense    — full posteriors every frame (the oracle);
   2. lazy     — frame-synchronous LazyContext scoring ONLY the senones the
                 live beam can consume (the reference's lazy API shape,
                 /root/reference/src/java/suskun/nn/QuantizedDnn.java:72-107);
   3. rescore  — the recorded mask trajectory scored in ONE device call
-                (Scorer.score_masked), the TPU-native consumption shape;
-  4. cluster  — the BLOCK-SPARSE deployment shape: derive the
-                senone-clustering permutation from the beam's own masks,
-                permute the model + lexicon ONCE, decode through
-                lazy_mode='block_sparse' (all-inactive MXU tiles skipped).
+                (Scorer.score_masked), the batched consumption shape.
 
-All four must produce the same word sequence; the printout shows the real
+All three must produce the same word sequence; the printout shows the real
 mask statistics the beam produced (density ~ the 30-50% the reference
-documents for production decoders, README.md:31-33) and how the clustering
-permutation concentrates them into skippable tiles.
+documents for production decoders, README.md:31-33).
 
     python examples/beam_decoder.py [--backend auto] [--beam 64]
 """
@@ -45,12 +41,11 @@ def main() -> int:
     import jax
 
     import fastdnn_tpu as fd
-    from fastdnn_tpu.config import EngineConfig, honor_jax_platforms_env
+    from fastdnn_tpu.config import EngineConfig
     from fastdnn_tpu.decoder import BeamDecoder, random_lexicon
+    from fastdnn_tpu.utils.synthetic import features
 
-    honor_jax_platforms_env()
-
-    frames = fd.read_features("/root/reference/data/8khz.aligned.bin")
+    frames = features(389)
     net = fd.align(fd.random_net(jax.random.PRNGKey(0), 429, [512] * 3, 1000), 4, 16)
     qnet = fd.quantize_net(net)
     scorer = fd.Scorer(qnet, EngineConfig(backend=args.backend))
@@ -85,49 +80,15 @@ def main() -> int:
     rescore = dec.decode_rescore(scorer, frames, lazy.masks)
     t_rescore = time.perf_counter() - t0
 
-    # clustered block-sparse: permute model + lexicon once, skip tiles
-    from fastdnn_tpu.engine.cluster import (
-        inverse_permutation,
-        mask_cluster_permutation,
-        permute_output_layer,
-    )
-
-    perm = mask_cluster_permutation(lazy.masks)
-    inv = inverse_permutation(perm)
-    sc_bs = fd.Scorer(
-        permute_output_layer(qnet, perm),
-        EngineConfig(
-            backend="pallas",
-            interpret=jax.devices()[0].platform != "tpu",
-            lazy_mode="block_sparse",
-        ),
-    )
-    lex_bs = Lexicon(tuple(tuple(int(inv[s]) for s in w) for w in lex.words))
-    dec_bs = BeamDecoder(lex_bs, scorer.output_dim, beam_width=args.beam)
-    t0 = time.perf_counter()
-    cluster = dec_bs.decode_rescore(sc_bs, frames, lazy.masks[:, perm])
-    t_cluster = time.perf_counter() - t0
-
-    def skippable(masks, bm=256, bn=512):
-        f, n = masks.shape
-        fi, nj = -(-f // bm), -(-n // bn)
-        pad = np.zeros((fi * bm, nj * bn), masks.dtype)
-        pad[:f, :n] = masks
-        return 1.0 - pad.reshape(fi, bm, nj, bn).any(axis=(1, 3)).mean()
-
     print(f"frames: {frames.shape[0]}, lexicon: {args.words} words, beam {args.beam}")
     print(f"dense   decode: {len(dense.words):3d} words, {t_dense*1e3:7.1f} ms")
     print(f"lazy    decode: {len(lazy.words):3d} words, {t_lazy*1e3:7.1f} ms "
           f"(LazyContext, one device call per frame)")
     print(f"rescore decode: {len(rescore.words):3d} words, {t_rescore*1e3:7.1f} ms "
           f"(whole mask matrix, one device call)")
-    print(f"cluster decode: {len(cluster.words):3d} words, {t_cluster*1e3:7.1f} ms "
-          f"(block-sparse kernels on the clustered-id model)")
     print(f"mask stats from the LIVE BEAM: density {lazy.avg_density:.3f}, "
           f"churn {lazy.avg_churn * scorer.output_dim:.1f} senone flips/frame")
-    print(f"skippable (256x512) tiles: raw ids {skippable(lazy.masks):.1%} -> "
-          f"clustered {skippable(lazy.masks[:, perm]):.1%}")
-    agree = dense.words == lazy.words == rescore.words == cluster.words
+    agree = dense.words == lazy.words == rescore.words
     print(f"word sequences agree: {agree}")
     return 0 if agree else 1
 

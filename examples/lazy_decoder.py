@@ -15,7 +15,7 @@ Two consumption patterns are shown:
      device round trip per frame, the very control-flow shape that limited
      the reference's lazy win to 5-10% (README.md:45).
 
-Run (any backend; uses the bundled reference features):
+Run (any backend; uses seeded stand-in features, utils.synthetic):
 
     python examples/lazy_decoder.py [--model model.bin] [--density 0.4]
 """
@@ -58,10 +58,9 @@ def main() -> int:
     args = p.parse_args()
 
     import fastdnn_tpu as fd
-    from fastdnn_tpu.config import EngineConfig, honor_jax_platforms_env
+    from fastdnn_tpu.config import EngineConfig
 
-    honor_jax_platforms_env()
-    frames = fd.read_features("/root/reference/data/8khz.aligned.bin")
+    frames = fd.synthetic_features(389)
     if args.model:
         net = fd.from_raw(fd.read_model(args.model))
     else:

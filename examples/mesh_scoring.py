@@ -32,9 +32,7 @@ def main() -> int:
 
     import jax
 
-    from fastdnn_tpu.config import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
+    
 
     import fastdnn_tpu as fd
     from fastdnn_tpu.config import EngineConfig
@@ -49,7 +47,7 @@ def main() -> int:
     else:
         net = fd.align(fd.random_net(jax.random.PRNGKey(0), 429, [512] * 3, 2000), 4, 16)
     qnet = fd.quantize_net(net, cutoff=3.0)
-    frames = fd.read_features("/root/reference/data/8khz.aligned.bin")
+    frames = fd.synthetic_features(389)
 
     single = fd.Scorer(qnet, EngineConfig(backend=args.backend))
     ref = single.score(frames)

@@ -4,7 +4,7 @@
     checkpoint -> score (full + lazy) -> serve over TCP -> client
 
 Uses a synthetic Kaldi-text network (the real trained net the reference's
-FuncTest converts is not redistributable) and the bundled feature files.
+FuncTest converts is not redistributable) and seeded stand-in features.
 
     python examples/pipeline.py [--backend auto]
 """
@@ -50,9 +50,8 @@ def main() -> int:
 
     import fastdnn_tpu as fd
     from fastdnn_tpu.cli.serve import ScoreClient, ScoreServer
-    from fastdnn_tpu.config import EngineConfig, honor_jax_platforms_env
+    from fastdnn_tpu.config import EngineConfig
 
-    honor_jax_platforms_env()
     from fastdnn_tpu.engine.stream import StreamingScorer
     from fastdnn_tpu.formats.kaldi_text import load_network_text
 
@@ -78,9 +77,9 @@ def main() -> int:
     qnet = fd.load_qnet(tmp / "model.qnet.npz")
     print("3. int8 checkpoint round trip")
 
-    # 4. score the bundled features, full + lazy
+    # 4. score the features, full + lazy
     scorer = fd.Scorer(qnet, EngineConfig(backend=args.backend))
-    frames = fd.read_features("/root/reference/data/8khz.aligned.bin")
+    frames = fd.synthetic_features(389)
     post = scorer.score(frames)
     masks = (rng.random((len(frames), scorer.output_dim)) < 0.4).astype(np.uint8)
     lazy = scorer.score_masked(frames, masks)

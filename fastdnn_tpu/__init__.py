@@ -1,10 +1,10 @@
-"""fastdnn_tpu — a TPU-native acoustic-scoring engine.
+"""fastdnn_tpu — an acoustic-scoring engine in JAX for NVIDIA GPUs.
 
 From-scratch JAX/XLA/Pallas framework with the capabilities of
 ahmetaa/fast-dnn (see SURVEY.md): Kaldi nnet1 feed-forward acoustic models,
-int8 linear quantization (signed weights x unsigned sigmoid activations) on
-the MXU, lazy (masked) output scoring, and data/model-parallel scaling over
-TPU meshes.
+int8 linear quantization (signed weights x unsigned sigmoid activations),
+lazy (masked) output scoring, and data/model-parallel scaling over device
+meshes.
 
 Quick start::
 
@@ -42,11 +42,12 @@ from .models.feedforward import (
 from .quant.quantize import (
     QuantizedNet,
     pack_int4_trunk,
-    pad_qnet_for_tpu,
+    pad_qnet,
     quantize_layer,
     quantize_net,
 )
 from .quant.serialize import load_qnet, save_qnet
+from .utils.synthetic import features as synthetic_features
 
 __version__ = "0.1.0"
 
@@ -83,8 +84,9 @@ __all__ = [
     "load_model_text",
     "load_qnet",
     "pack_int4_trunk",
-    "pad_qnet_for_tpu",
+    "pad_qnet",
     "save_qnet",
+    "synthetic_features",
     "quantize_layer",
     "quantize_net",
     "random_net",

@@ -68,9 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from ..config import enable_compilation_cache, honor_jax_platforms_env
+    from ..config import enable_compilation_cache
 
-    honor_jax_platforms_env()
     enable_compilation_cache()
     args = build_parser().parse_args(argv)
     if args.cmd == "model":

@@ -24,7 +24,7 @@ from ..formats.binary import read_features, write_features, write_features_text
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="fastdnn-score", description="Score acoustic features with a quantized DNN on TPU"
+        prog="fastdnn-score", description="Score acoustic features with a quantized DNN"
     )
     p.add_argument(
         "model",
@@ -66,10 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--lazy-mode",
         default="auto",
-        choices=["auto", "dense", "gathered", "block_sparse"],
-        help="masked-scoring strategy (config.EngineConfig.lazy_mode); "
-        "block_sparse skips all-inactive MXU tiles (pallas backend; pair "
-        "with clustered senone ids, engine.cluster)",
+        choices=["auto", "dense", "gathered"],
+        help="masked-scoring strategy (config.EngineConfig.lazy_mode)",
     )
     p.add_argument("--iterations", type=int, default=1, help="repeat scoring (timing)")
     p.add_argument("--seed", type=int, default=1)
@@ -101,9 +99,8 @@ def generate_masks(rng, count, dim, density, churn_frac=0.03):
 
 
 def main(argv=None) -> int:
-    from ..config import enable_compilation_cache, honor_jax_platforms_env
+    from ..config import enable_compilation_cache
 
-    honor_jax_platforms_env()
     enable_compilation_cache()
     args = build_parser().parse_args(argv)
 

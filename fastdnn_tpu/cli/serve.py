@@ -4,7 +4,7 @@
         [--cutoff 3.0] [--max-batch-frames 8192] [--max-wait-ms 3]
 
 Concurrent clients submit utterances; the StreamingScorer packs them into
-shared MXU batches (the TPU-native replacement for the reference's
+shared device batches (the replacement for the reference's
 thread-per-caller JNI model — see engine/stream.py).
 
 Wire protocol (all integers little-endian u32 unless noted):
@@ -32,6 +32,8 @@ import sys
 import threading
 
 import numpy as np
+
+from ..config import EngineConfig
 
 MAGIC = b"FDN1"
 OP_SCORE, OP_SCORE_MASKED, OP_STATS = 1, 2, 3
@@ -154,10 +156,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--lazy-mode",
         default="auto",
-        choices=["auto", "dense", "gathered", "block_sparse"],
-        help="masked-scoring strategy (config.EngineConfig.lazy_mode); "
-        "block_sparse skips all-inactive MXU tiles (pallas backend; "
-        "clients must send clustered senone ids, engine.cluster)",
+        choices=["auto", "dense", "gathered"],
+        help="masked-scoring strategy (config.EngineConfig.lazy_mode)",
     )
     p.add_argument(
         "--mesh-model",
@@ -193,11 +193,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--input-precision",
-        default="high",
+        default=EngineConfig.input_precision,
         choices=["highest", "high", "default"],
-        help="MXU pass count for the float input layer "
-        "(EngineConfig.input_precision); 'default' (1-pass bf16) is the "
-        "throughput setting and can flip a few sigmoid counts",
+        help="matmul precision of the float input layer "
+        "(EngineConfig.input_precision); below 'highest' a GPU may run it "
+        "in TF32, which can flip a few sigmoid counts",
     )
     p.add_argument(
         "--warmup",
@@ -215,7 +215,6 @@ def build_scorer(args):
     Returns the scorer; in a multi-process launch, non-coordinator
     processes get a MultiHostScorer whose worker_loop the caller must run.
     """
-    from ..config import EngineConfig
     from ..quant.serialize import load_quantized
 
     if getattr(args, "coordinator", None):
@@ -234,7 +233,7 @@ def build_scorer(args):
         backend=args.backend,
         lazy_mode=getattr(args, "lazy_mode", "auto"),
         fast_posteriors=getattr(args, "fast_posteriors", False),
-        input_precision=getattr(args, "input_precision", "high"),
+        input_precision=getattr(args, "input_precision", EngineConfig.input_precision),
     )
     mesh_model = getattr(args, "mesh_model", 0)
     mesh_data = getattr(args, "mesh_data", None)
@@ -270,9 +269,8 @@ def make_server(args, prebuilt=None) -> ScoreServer:
 
 
 def main(argv=None) -> int:
-    from ..config import enable_compilation_cache, honor_jax_platforms_env
+    from ..config import enable_compilation_cache
 
-    honor_jax_platforms_env()
     enable_compilation_cache()
     args = build_parser().parse_args(argv)
     prebuilt = None

@@ -16,7 +16,7 @@ random churn, FuncTest.java:121-154).  The engine integration points:
   * `decode_rescore` — two-pass pattern: run the search once to RECORD the
                        mask trajectory, then hand the whole [frames, senones]
                        mask matrix to `Scorer.score_masked` in ONE device
-                       call — the TPU-native consumption shape (the per-frame
+                       call — the batched consumption shape (the per-frame
                        boundary crossing is what limited the reference's lazy
                        win to 5-10%, README.md:45).
 

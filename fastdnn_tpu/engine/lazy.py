@@ -2,23 +2,19 @@
 
 The reference's lazy path computes dot products only for senones the ASR
 decoder marks active (~30-50% of 8000, /root/reference/README.md:31-33),
-one frame per JNI call (dnn.cc:355-392).  The TPU translation here
+one frame per JNI call (dnn.cc:355-392).  The batched translation here
 materializes the union of active senones across the frame block as a
 fixed-capacity index vector (static shape -> jit-friendly), gathers the
 weight columns, runs the matmul at [B, K] x [K, C], and scatters back to
 zero-filled logits.
 
-MEASURED VERDICT (v5e, flagship 7x2048/8000, tools/profile.py gathered;
-table in BENCHMARKS.md): the DENSE masked path wins at every batch size
-(B in {1, 8, 32}) and density (0.05, 0.40) — 0.079 device-ms/call dense
-vs 0.12-0.28 gathered.  The gather is not free column-skipping: jnp.take
-writes the gathered columns as a NEW [K, C] matrix, so the output stage
-pays read+write+re-read of C columns where the resident dense kernel pays
-ONE speed-of-light read of all N.  "Lazy" on TPU is a masking problem,
-not a gather problem (SURVEY.md §3.3) — config.lazy_mode="auto" therefore
-resolves to dense, and this path runs only on explicit
-lazy_mode="gathered" (it would pay off only where the full output weight
-read is itself the bottleneck, i.e. output layers far beyond 8k senones).
+The gather is not free column-skipping: jnp.take writes the gathered
+columns as a NEW [K, C] matrix, so the output stage pays read+write+re-read
+of C columns where the dense path pays one read of all N.  So
+config.lazy_mode="auto" resolves to dense, and this path runs only on
+explicit lazy_mode="gathered".  Whether it wins anywhere on the GPU (small
+batches, low densities, output layers far beyond 8k senones) is not
+measured yet.
 
 Posteriors are bit-identical to the dense masked path: gathered columns use
 the same integer math, non-gathered columns keep the reference's zero logit.

@@ -3,9 +3,9 @@
 The production serving shape this replaces in the reference is "many Java
 threads, each with a private CalculationContext, each paying a JNI round
 trip per call" (/root/reference/src/java/suskun/nn/QuantizedDnn.java:149-167,
-test/java/suskun/nn/MultiThreadedStressTest.java).  On TPU the economics
-invert: one big MXU batch beats many small private ones, so the streaming
-engine
+test/java/suskun/nn/MultiThreadedStressTest.java).  On an accelerator the
+economics invert: one big device batch beats many small private ones, so
+the streaming engine
 
   * collects utterances from any number of producer threads,
   * packs them into frame batches up to `max_batch_frames` (padding only to

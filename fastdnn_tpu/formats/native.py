@@ -1,6 +1,6 @@
 """ctypes bindings to the native IO library (native/fastdnn_io.cc).
 
-The native library is the TPU build's analog of the reference's C++
+The native library is this engine's analog of the reference's C++
 BinaryLoader/BatchData (/root/reference/src/cpp/float_dnn.cc): host-side
 big-endian parsing of model/feature files, kept native for bulk byte-swap
 speed.  Everything degrades gracefully to the pure-numpy implementations in

@@ -6,7 +6,7 @@ feature transform `(x + shift) * scale` applied before the first layer.
 
 Unlike the reference this is a JAX-native design:
   * weights are stored [input_dim, output_dim] so a frame batch is scored as
-    `x @ W + b` — directly MXU-shaped (the reference stores node-major rows
+    `x @ W + b` — directly matmul-shaped (the reference stores node-major rows
     for SSE dot products, /root/reference/src/cpp/dnn.cc:123-144);
   * `align` / `extend` are pure array transforms returning new nets
     (spec: FeedForwardNetwork.align/extend, /root/reference/src/java/suskun/
@@ -204,8 +204,8 @@ def forward(
     x = apply_transform(net, frames) if apply_input_transform else frames
     n = net.layer_count
     for i in range(n):
-        # full f32 MXU precision: TPU matmuls default to bf16 passes, which
-        # would blur the oracle this pass exists to be
+        # full f32 precision: accelerator matmuls default to bf16 or TF32
+        # passes, which would blur the oracle this pass exists to be
         x = jnp.dot(x, net.weights[i], precision=jax.lax.Precision.HIGHEST)
         x = x + net.biases[i]
         if i < n - 1:

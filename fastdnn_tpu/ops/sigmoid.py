@@ -7,13 +7,14 @@ The reference quantizes sigmoid outputs through a 1280-entry lookup table at
     k <= -640 -> 0;  k >= 640 -> 255
     else      -> round(sigmoid(k / 100) * 255)
 
-On TPU a gather through a LUT would waste the VPU; the closed form above *is*
-the table, so we compute it directly — bit-exact with the table by
-construction (both roundings are C round(), i.e. half-away-from-zero).
+On an accelerator a gather through a LUT is slower than arithmetic; the
+closed form above *is* the table, so we compute it directly — bit-exact with
+the table by construction (both roundings are C round(), i.e.
+half-away-from-zero).
 `build_reference_lut` reconstructs the table itself for tests.
 
 Activations are carried through the engine as **zero-point-shifted int8**
-(q - 128) so both matmul operands are int8 on the MXU; see
+(q - 128) so both matmul operands are int8; see
 fastdnn_tpu/ops/matmul.py for the correction-term algebra.
 """
 
@@ -28,7 +29,7 @@ from ..config import (
     SIGMOID_RESOLUTION,
 )
 
-ZERO_POINT = 128  # uint8 activation zero point used for the int8 MXU trick
+ZERO_POINT = 128  # uint8 activation zero point used for the s8 x s8 matmul
 
 
 def _round_half_away(x):
@@ -46,13 +47,12 @@ def quantized_sigmoid_u8(x: jnp.ndarray) -> jnp.ndarray:
     above f32 noise.  (Bit-exactness vs the rebuilt LUT is test-gated.)
 
     Computed as 127.5 + 127.5*tanh(kc/200) == 255*sigmoid(kc/100): tanh is
-    one transcendental where the sigmoid form needs exp + divide — on v5e
-    this trims the input-layer fusion's epilogue the same way it trims the
-    Pallas hidden kernels (ops/pallas_kernels._quantized_sigmoid_shifted).
-    The two table entries whose margin (1.5e-4) sits below accelerator
-    tanh-approximation error (k = +/-513) are pinned explicitly;
-    tools/check_sigmoid.py verifies all 1281 entries bit-exact on-device
-    for BOTH backends, tests/test_quant.py on CPU.
+    one transcendental where the sigmoid form needs exp + divide.  The two
+    table entries whose margin (1.5e-4) is the smallest by far (k = +/-513;
+    every other entry's is >= 0.0216) are pinned explicitly, so an
+    approximate device tanh cannot round them the wrong way; chip_smoke.py
+    checks all 1281 entries bit-exact on the GPU for the XLA path and the
+    fused kernel's epilogue, tests/test_quant.py on CPU.
     """
     half = float(SIGMOID_HALF_LOOKUP_SIZE)
     k = _round_half_away(x * SIGMOID_RESOLUTION)
@@ -70,7 +70,7 @@ def quantized_sigmoid_shifted_i8(x: jnp.ndarray) -> jnp.ndarray:
     """f32 -> (quantized sigmoid - 128) as int8, the engine's wire format.
 
     Trimmed algebra of `quantized_sigmoid_u8` (bit-identical on the integer
-    kc domain, gated by tests/test_quant.py + tools/check_sigmoid.py):
+    kc domain, gated by tests/test_quant.py and chip_smoke.py):
 
       * half-away rounding as one trunc:  sign(x)*floor(|x|*r + 0.5)
         == trunc(x*r + copysign(0.5, x))  for every x;
@@ -80,8 +80,7 @@ def quantized_sigmoid_shifted_i8(x: jnp.ndarray) -> jnp.ndarray:
         u = 127.5*tanh(kc/200) = v - 127.5 (margins unchanged, >= 0.0216
         except the two pinned entries).
 
-    Saves ~5 VPU ops/element over the v-form — measured 15 us per
-    8192x2048 hidden layer and 38 us on the input fusion (v5e, traced).
+    Saves ~5 elementwise ops per element over the v-form.
     """
     half_scale = ACTIVATION_SCALE / 2.0  # 127.5
     k = jnp.trunc(x * SIGMOID_RESOLUTION + jnp.copysign(jnp.float32(0.5), x))

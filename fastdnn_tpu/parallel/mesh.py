@@ -2,20 +2,20 @@
 
 The reference has no distributed components at all (SURVEY.md §2, "none
 exist") — its only concurrency is threads sharing one immutable model.  The
-TPU-native scaling design (BASELINE.json north star) is:
+multi-device scaling design (BASELINE.json north star) is:
 
   * axis "data":  utterance/frame batches are data-parallel
   * axis "model": the output layer (8000+ senones) is tensor-parallel —
     weight matrix sharded on its node dim, posteriors combined with XLA
-    collectives over ICI
+    collectives between the devices
 
 Hidden layers are replicated (40 MB int8 for the 7x2048 net — cheap) so the
-only per-step collectives are on the output layer, where psum/all_gather
-ride ICI.
+only per-step collectives are on the output layer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import jax
@@ -59,31 +59,32 @@ def init_multihost(coordinator_address: Optional[str] = None, **kwargs) -> None:
     jax.distributed.initialize(coordinator_address=coordinator_address, **kwargs)
 
 
+def qnet_specs(qnet):
+    """PartitionSpecs for a QuantizedNet pytree: hidden layers replicated,
+    output layer (last entry of weights/colsum128/biases) sharded over
+    MODEL_AXIS on the node dim.  Static fields are kept, so the specs share
+    the net's treedef."""
+    n = len(qnet.weights)
+    rep = P()
+    return dataclasses.replace(
+        qnet,
+        input_w=rep,
+        input_b=rep,
+        weights=tuple([rep] * (n - 1) + [P(None, MODEL_AXIS)]),
+        colsum128=tuple([rep] * (n - 1) + [P(MODEL_AXIS)]),
+        biases=tuple([rep] * (n - 1) + [P(MODEL_AXIS)]),
+        inv_scales=tuple([rep] * n),
+        multipliers=tuple([rep] * n),
+    )
+
+
 def qnet_shardings(mesh: Mesh):
-    """NamedShardings for a QuantizedNet pytree on `mesh`.
+    """NamedShardings for a QuantizedNet pytree on `mesh` (qnet_specs)."""
 
-    Hidden layers replicated; output layer (last entry of weights/colsum128/
-    biases) sharded over MODEL_AXIS on the node dim.
-    """
-    from ..quant.quantize import QuantizedNet
-
-    rep = NamedSharding(mesh, P())
-    col = NamedSharding(mesh, P(None, MODEL_AXIS))
-    vec = NamedSharding(mesh, P(MODEL_AXIS))
-
-    def build(qnet: QuantizedNet) -> QuantizedNet:
-        n = len(qnet.weights)
-        return QuantizedNet(
-            input_w=rep,
-            input_b=rep,
-            weights=tuple([rep] * (n - 1) + [col]),
-            colsum128=tuple([rep] * (n - 1) + [vec]),
-            biases=tuple([rep] * (n - 1) + [vec]),
-            inv_scales=tuple([rep] * n),
-            multipliers=tuple([rep] * n),
-            # static metadata must match the net's treedef for in_shardings
-            true_output_dim=qnet.true_output_dim,
-            packed_int4=qnet.packed_int4,
+    def build(qnet):
+        return jax.tree_util.tree_map(
+            lambda spec: NamedSharding(mesh, spec), qnet_specs(qnet),
+            is_leaf=lambda x: isinstance(x, P),
         )
 
     return build

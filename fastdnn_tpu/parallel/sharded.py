@@ -5,21 +5,17 @@ engine:
 
   * `make_mesh_programs` — the PRODUCTION path, used by
     `engine.Scorer(..., mesh=...)`: jitted `shard_map` programs running the
-    full configured kernel stack (Pallas hidden/output kernels, block
-    sizes, fused softmax where legal) per shard, with hand-placed
-    collectives (pmax/psum over the model axis) for the globally-exact
-    softmax.  shard_map sees per-shard local arrays, so an opaque
-    `pallas_call` can never induce a hidden all-gather of the sharded
-    output weight — the only cross-chip traffic is the two scalar-per-frame
-    softmax collectives riding ICI.
+    engine's per-shard stack (the fused hidden kernel where the net was
+    prepared for it, XLA otherwise) with hand-placed collectives
+    (pmax/psum over the model axis) for the globally-exact softmax.
+    shard_map sees per-shard local arrays, so the only cross-device
+    traffic is the two scalar-per-frame softmax collectives.
   * `score_shard_map` — the standalone explicit-collective scorer over raw
     arrays (didactic/verification surface for the same body).
   * `make_gspmd_scorer` — `jax.jit` with NamedShardings; XLA's SPMD
-    partitioner inserts the collectives.  Composes with any backend, but
-    NOTE: a `pallas_call` is opaque to the partitioner, so with
-    backend="pallas" and a model-sharded output weight XLA will gather
-    operands to satisfy the kernel — correct but not scalable.  Use the
-    shard_map paths for multi-chip Pallas production.
+    partitioner inserts the collectives.  For plain (XLA-path) nets: a
+    `pallas_call` is opaque to the partitioner, so use the shard_map paths
+    for nets prepared for the fused kernel.
 
 Softmax across a node-sharded output layer needs a global max and a global
 sum (SURVEY.md §5 "Multi-host numerics"): with logits z sharded over
@@ -48,34 +44,20 @@ try:  # jax >= 0.6 public API, else experimental
 except AttributeError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
 
-from ..engine.scorer import hidden_forward, output_logits, score_fn, score_masked_fn
-from ..ops import matmul as xops
+from ..engine.scorer import (
+    hidden_forward,
+    masked_posteriors,
+    output_logits,
+    score_fn,
+    score_masked_fn,
+)
 from ..quant.quantize import QuantizedNet
-from .mesh import DATA_AXIS, MODEL_AXIS, frames_sharding, qnet_shardings
-
-
-def _net_spec(
-    n_layers: int, true_output_dim: Optional[int], packed_int4: bool = False
-) -> QuantizedNet:
-    """shard_map PartitionSpecs for a QuantizedNet: hidden layers replicated,
-    output layer sharded on the node dim over MODEL_AXIS."""
-    return QuantizedNet(
-        input_w=P(),
-        input_b=P(),
-        weights=tuple([P()] * (n_layers - 1) + [P(None, MODEL_AXIS)]),
-        colsum128=tuple([P()] * (n_layers - 1) + [P(MODEL_AXIS)]),
-        biases=tuple([P()] * (n_layers - 1) + [P(MODEL_AXIS)]),
-        inv_scales=tuple([P()] * n_layers),
-        multipliers=tuple([P()] * n_layers),
-        # static metadata must match the net's treedef
-        true_output_dim=true_output_dim,
-        packed_int4=packed_int4,
-    )
+from .mesh import DATA_AXIS, MODEL_AXIS, frames_sharding, qnet_shardings, qnet_specs
 
 
 def _valid_cols(n_local: int, out_dim: int | None):
     """Per-shard boolean [1, n_local]: True where the global column index is
-    a real senone, False on MXU padding columns (pad_qnet_for_tpu) — those
+    a real senone, False on padding columns (pad_qnet) — those
     must not join the softmax max/denominator (score_fn slices them off in
     the single-device engine; here they live on the last shard)."""
     if out_dim is None:
@@ -125,95 +107,22 @@ def _sharded_posteriors_from_logits(z, masks, valid, semantics):
     return e / jnp.maximum(s, jnp.finfo(jnp.float32).tiny)
 
 
-def _sharded_fused_posteriors(
-    net, acts, masks, *, out_dim, semantics, interpret, out_blocks,
-    block_sparse=False, fast=False,
-):
-    """Tensor-parallel FUSED softmax: each shard's flash-stats kernel emits
-    local logits plus un-normalized (max, sum-of-exp) in ONE MXU pass, so
-    the globally-exact softmax costs only two scalar-per-frame collectives
-    and a single fused read of the local logits — no extra logits HBM
-    round-trip like the logits-kernel + collective-softmax path.  The
-    kernel's valid-column cutoff is dynamic (the real-senone count varies
-    per shard), and masked semantics are applied in-kernel.
-
-    block_sparse (masked calls only): each shard runs the tile-skipping
-    stats kernel over its local mask slice instead — all-inactive
-    (frame x node) tiles skip their matmul and stats work.  Reference
-    semantics stay globally exact: every shard's skipped REAL senones
-    enter its local sum as exp(0)=1 (the nskip init), so the psum counts
-    each inactive senone exactly once.
-    """
-    from ..engine import pallas_backend
-
-    n_local = net.weights[-1].shape[1]
-    shard = jax.lax.axis_index(MODEL_AXIS)
-    valid = jnp.clip(out_dim - shard * n_local, 0, n_local).astype(jnp.int32)
-    bkw = {}
-    if out_blocks is not None:
-        bkw = dict(block_frames=out_blocks[0], block_nodes=out_blocks[1])
-    if block_sparse and masks is not None:
-        z, m_l, s_l = pallas_backend.output_flash_stats_block_sparse(
-            acts,
-            net.weights[-1],
-            net.colsum128[-1],
-            net.inv_scales[-1],
-            net.biases[-1],
-            masks,
-            valid_count=valid,
-            semantics=semantics,
-            interpret=interpret,
-            **bkw,
-        )
-    else:
-        z, m_l, s_l = pallas_backend.output_flash_stats(
-            acts,
-            net.weights[-1],
-            net.colsum128[-1],
-            net.inv_scales[-1],
-            net.biases[-1],
-            masks,
-            valid_count=valid,
-            semantics=semantics,
-            interpret=interpret,
-            **bkw,
-        )
-    m = jax.lax.pmax(m_l, MODEL_AXIS)
-    s = jax.lax.psum(s_l * jnp.exp(m_l - m), MODEL_AXIS)
-    p = jnp.exp(z - m) / jnp.maximum(s, jnp.finfo(jnp.float32).tiny)
-    # rows whose GLOBAL max is still at the cap (fully-masked active_only
-    # frames, or shards past the senone cutoff everywhere) -> zeros
-    p = jnp.where(m > jnp.float32(-1e29), p, 0.0)
-    # fast_posteriors: the cross-shard softmax stays exact in f32 (stats
-    # and normalize above); only the final posterior WRITE narrows to bf16
-    # — same halved device->host/consumer bandwidth as the single-device
-    # resident kernel's fast mode, same error model (bf16 rounding away
-    # from the softmax mass)
-    return p.astype(jnp.bfloat16) if fast else p
-
-
 # ---------------------------------------------------------------------------
 # Production mesh programs (engine.Scorer(mesh=...))
 # ---------------------------------------------------------------------------
 
 def make_mesh_programs(
     mesh: Mesh,
+    net: QuantizedNet,
     *,
-    n_layers: int,
     out_dim: int,
     semantics: str = "reference",
-    backend: str = "xla",
     interpret: bool = False,
-    fused_softmax: bool = False,
-    input_precision: str = "high",
+    input_precision: str = "highest",
     fast_posteriors: bool = False,
-    hidden_blocks=None,
-    out_blocks=None,
-    true_output_dim: Optional[int] = None,
-    block_sparse: bool = False,
-    packed_int4: bool = False,
 ):
-    """Jitted shard_map programs for mesh-backed Scorers.
+    """Jitted shard_map programs for mesh-backed Scorers over `net` (its
+    layer count and static layout flags fix the programs' specs).
 
     Returns (score, score_masked, hidden, masked_from_acts):
       score(net, frames)                -> posteriors
@@ -223,33 +132,18 @@ def make_mesh_programs(
       masked_from_acts(net, acts, masks)-> posteriors from stored activations
 
     With model=1 the bodies run the complete single-device program per data
-    shard — including the fused in-kernel softmax — and emit [B, out_dim].
-    With model>1 the output layer runs as the per-shard kernel stack's
-    logits pass plus the exact collective softmax, emitting the padded
-    width [B, N_padded] sharded over (data, model); padding columns are 0.
+    shard and emit [B, out_dim].  With model>1 the output layer runs as a
+    per-shard logits pass plus the exact collective softmax, emitting the
+    padded width [B, N_padded] sharded over (data, model); padding columns
+    are 0.
     """
     model = mesh.shape[MODEL_AXIS]
-    if block_sparse and not (backend == "pallas" and fused_softmax):
-        raise ValueError(
-            "block_sparse mesh programs need backend='pallas' with "
-            "fused_softmax=True — the tile-skipping lives inside the "
-            "fused masked kernels"
-        )
-    net_spec = _net_spec(n_layers, true_output_dim, packed_int4)
+    net_spec = qnet_specs(net)
     fspec = P(DATA_AXIS, None)
-    kw = dict(
-        backend=backend,
-        interpret=interpret,
-        input_precision=input_precision,
-        hidden_blocks=hidden_blocks,
-        out_blocks=out_blocks,
-    )
+    kw = dict(interpret=interpret, input_precision=input_precision)
 
     def hidden_body(net, frames):
-        return hidden_forward(
-            net, frames, backend, interpret, input_precision,
-            hidden_blocks=hidden_blocks,
-        )
+        return hidden_forward(net, frames, input_precision, interpret)
 
     if model == 1:
         out_spec = P(DATA_AXIS, None)
@@ -257,8 +151,7 @@ def make_mesh_programs(
 
         def score_body(net, frames):
             return score_fn(
-                net, frames, out_dim=out_dim, fused_softmax=fused_softmax,
-                fast_posteriors=fast_posteriors, **kw,
+                net, frames, out_dim=out_dim, fast_posteriors=fast_posteriors, **kw
             )
 
         def masked_body(net, frames, masks):
@@ -266,18 +159,12 @@ def make_mesh_programs(
             # score_masked_fn wants the true senone count
             return score_masked_fn(
                 net, frames, masks[:, :out_dim], out_dim=out_dim,
-                semantics=semantics, fused_softmax=fused_softmax,
-                fast_posteriors=fast_posteriors, block_sparse=block_sparse,
-                **kw,
+                semantics=semantics, fast_posteriors=fast_posteriors, **kw,
             )
 
         def from_acts_body(net, acts, masks):
-            z = output_logits(net, acts, backend, interpret, out_blocks)
-            z = z[:, :out_dim]
-            mask_bool = masks[:, :out_dim] != 0
-            if semantics == "reference":
-                return xops.masked_softmax_reference(z, mask_bool)
-            return xops.masked_softmax_active_only(z, mask_bool)
+            z = output_logits(net, acts)[:, :out_dim]
+            return masked_posteriors(z, masks[:, :out_dim], semantics)
 
     else:
         out_spec = P(DATA_AXIS, MODEL_AXIS)
@@ -287,13 +174,7 @@ def make_mesh_programs(
             # fast_posteriors on a model-sharded mesh: the cross-shard
             # softmax (stats, collectives, normalize) stays exact in f32;
             # only the final posterior write narrows to bf16
-            if backend == "pallas" and fused_softmax:
-                return _sharded_fused_posteriors(
-                    net, acts, masks, out_dim=out_dim, semantics=semantics,
-                    interpret=interpret, out_blocks=out_blocks,
-                    block_sparse=block_sparse, fast=fast_posteriors,
-                )
-            z = output_logits(net, acts, backend, interpret, out_blocks)
+            z = output_logits(net, acts)
             p = _sharded_posteriors_from_logits(
                 z, masks, _valid_cols(z.shape[-1], out_dim), semantics
             )
@@ -308,48 +189,24 @@ def make_mesh_programs(
         def from_acts_body(net, acts, masks):
             return _out(net, acts, masks)
 
-    def _wrap(body, in_specs, out_specs, pin_layout=False):
+    def _wrap(body, in_specs, out_specs):
         # check_vma=False: the static replication checker cannot see through
         # pallas_call/score_fn internals to prove outputs replicated over an
         # unused model axis; the specs here are replication-correct by
         # construction (model=1 bodies never touch the model axis, model>1
         # bodies emit genuinely model-sharded posteriors).
-        try:
-            sm = shard_map(
+        return jax.jit(
+            shard_map(
                 body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
                 check_vma=False,
             )
-        except TypeError:  # pragma: no cover - older shard_map API
-            sm = shard_map(
-                body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                check_rep=False,
-            )
-        jit_kw = {}
-        if pin_layout and backend == "pallas" and not interpret:
-            # pin the posteriors' entry layout to row-major, same as the
-            # single-device Scorer: with an unaligned true senone count XLA
-            # otherwise emits a column-major program output and inserts a
-            # full transpose copy (~0.8 ms per 8192-frame batch on v5e —
-            # observed via tools/profile.py trace-mesh)
-            try:
-                import jax.experimental.layout as jl
+        )
 
-                jit_kw["out_shardings"] = jl.Format(
-                    jl.Layout(major_to_minor=(0, 1)),
-                    NamedSharding(mesh, out_specs),
-                )
-            except Exception:  # pragma: no cover - layout API drift
-                jit_kw = {}
-        return jax.jit(sm, **jit_kw)
-
-    score = _wrap(score_body, (net_spec, fspec), out_spec, pin_layout=True)
-    score_masked = _wrap(
-        masked_body, (net_spec, fspec, mask_spec), out_spec, pin_layout=True
-    )
+    score = _wrap(score_body, (net_spec, fspec), out_spec)
+    score_masked = _wrap(masked_body, (net_spec, fspec, mask_spec), out_spec)
     hidden = _wrap(hidden_body, (net_spec, fspec), P(DATA_AXIS, None))
     masked_from_acts = _wrap(
-        from_acts_body, (net_spec, P(DATA_AXIS, None), mask_spec), out_spec,
-        pin_layout=True,
+        from_acts_body, (net_spec, P(DATA_AXIS, None), mask_spec), out_spec
     )
     return score, score_masked, hidden, masked_from_acts
 
@@ -361,37 +218,29 @@ def make_mesh_programs(
 def make_gspmd_scorer(
     mesh: Mesh,
     *,
-    backend: str = "xla",
     interpret: bool = False,
     out_dim: Optional[int] = None,
     semantics: str = "reference",
-    fused_softmax: bool = False,
-    input_precision: str = "high",
+    input_precision: str = "highest",
     fast_posteriors: bool = False,
-    hidden_blocks=None,
-    out_blocks=None,
 ):
     """Returns jitted (score, score_masked) over the mesh.
 
     The returned callables take (qnet, frames[, masks]) already or not yet
     device_put — jit moves them per the declared shardings either way.
-    All engine knobs (backend, fused_softmax, block sizes) pass through to
-    score_fn/score_masked_fn.  With backend="pallas" and model>1 the
-    partitioner must gather operands around the opaque pallas_call — prefer
-    Scorer(mesh=...)/score_shard_map for multi-chip Pallas (module docstring).
+    Engine knobs pass through to score_fn/score_masked_fn.  For a net
+    prepared for the fused kernel the partitioner must gather operands
+    around the opaque pallas_call — prefer Scorer(mesh=...) /
+    score_shard_map there (module docstring).
     """
     fs = frames_sharding(mesh)
     out_sharding = NamedSharding(mesh, P(DATA_AXIS, None))
     mask_sharding = NamedSharding(mesh, P(DATA_AXIS, None))
     engine_kw = dict(
-        backend=backend,
         interpret=interpret,
         out_dim=out_dim,
-        fused_softmax=fused_softmax,
         input_precision=input_precision,
         fast_posteriors=fast_posteriors,
-        hidden_blocks=hidden_blocks,
-        out_blocks=out_blocks,
     )
     # jit executables are cached per net STRUCTURE (the in_shardings pytree
     # depends on the layer count): building a fresh jax.jit wrapper per call
@@ -399,7 +248,7 @@ def make_gspmd_scorer(
     _cache: dict = {}
 
     def _jitted(kind: str, qnet: QuantizedNet):
-        key = (kind, len(qnet.weights), qnet.true_output_dim, qnet.packed_int4)
+        key = (kind, jax.tree_util.tree_structure(qnet))
         if key not in _cache:
             net_sh = qnet_shardings(mesh)(qnet)
             if kind == "score":
@@ -453,28 +302,24 @@ def score_shard_map(
     mesh: Mesh,
     *,
     masks: Optional[jax.Array] = None,
-    backend: str = "xla",
     interpret: bool = False,
     semantics: str = "reference",
     out_dim: Optional[int] = None,
-    input_precision: str = "high",
-    hidden_blocks=None,
-    out_blocks=None,
+    input_precision: str = "highest",
 ) -> jax.Array:
     """Explicit-collective scoring.  frames [B, in] with B divisible by the
     data axis; output dim must be divisible by the model axis (pad the net
-    with pad_qnet_for_tpu(out_lanes=128*model) if needed — the padded net
-    carries its true senone count, so padding columns stay out of the
-    softmax automatically).  Returns posteriors [B, out_padded] sharded
+    with pad_qnet(out_lanes=model) if needed — the padded net carries its
+    true senone count, so padding columns stay out of the softmax
+    automatically).  Returns posteriors [B, out_padded] sharded
     (data, model); columns at or beyond out_dim are exactly 0.
     """
     if out_dim is None:
-        # pad_qnet_for_tpu stamps the true senone count on the net; fall
-        # back to it so padded zero-logit columns never join the softmax
-        # denominator by default (width == count for unpadded nets).
+        # pad_qnet stamps the true senone count on the net; fall back to it
+        # so padded zero-logit columns never join the softmax denominator
+        # by default (width == count for unpadded nets).
         out_dim = qnet.output_dim
-    n_layers = len(qnet.weights)
-    net_spec = _net_spec(n_layers, qnet.true_output_dim, qnet.packed_int4)
+    net_spec = qnet_specs(qnet)
     in_specs = [net_spec, P(DATA_AXIS, None)]
     args = [qnet, frames]
     if masks is not None:
@@ -482,11 +327,8 @@ def score_shard_map(
         args.append(masks)
 
     def body(net, local_frames, *rest):
-        acts = hidden_forward(
-            net, local_frames, backend, interpret, input_precision,
-            hidden_blocks=hidden_blocks,
-        )
-        z = output_logits(net, acts, backend, interpret, out_blocks)
+        acts = hidden_forward(net, local_frames, input_precision, interpret)
+        z = output_logits(net, acts)
         valid = _valid_cols(z.shape[-1], out_dim)
         return _sharded_posteriors_from_logits(
             z, rest[0] if rest else None, valid, semantics
@@ -494,17 +336,14 @@ def score_shard_map(
 
     key = (
         mesh,
-        n_layers,
+        jax.tree_util.tree_structure(qnet),
         tuple(w.shape for w in qnet.weights),
         frames.shape,
         masks is not None,
-        backend,
         interpret,
         semantics,
         out_dim,
         input_precision,
-        hidden_blocks,
-        out_blocks,
     )
     return _cache_get(
         key,

@@ -33,7 +33,7 @@ def save_qnet(qnet: QuantizedNet, path) -> None:
     arrays = {
         "format_version": np.int32(FORMAT_VERSION),
         "n_quantized_layers": np.int32(n),
-        # -1 encodes "width is the true senone count" (no MXU padding)
+        # -1 encodes "width is the true senone count" (no padding)
         "true_output_dim": np.int32(
             -1 if qnet.true_output_dim is None else qnet.true_output_dim
         ),

@@ -2,23 +2,13 @@
 
 The reference pads dims for SSE lanes (input dim to x4, hidden widths to x16;
 see /root/reference/src/java/suskun/nn/FloatData.java:92-107 and
-FeedForwardNetwork.java:50-58).  On TPU the analogous constraint is MXU/VPU
-tiling: the last dim wants multiples of 128 lanes and the second-to-last a
-dtype-dependent sublane count (8 for f32, 32 for int8).  These helpers keep
-both worlds: `aligned_size` reproduces the reference semantics exactly, and
-`pad_axis_to` zero-pads arrays for kernel-friendly shapes.
+FeedForwardNetwork.java:50-58).  `aligned_size` and `align_vector`
+reproduce the reference semantics exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-# TPU lane/sublane constants (see pallas guide: min tiles are (8,128) f32,
-# (32,128) int8).
-LANES = 128
-SUBLANES_F32 = 8
-SUBLANES_I8 = 32
-
 
 def aligned_size(size: int, alignment: int) -> int:
     """Round `size` up to a multiple of `alignment`.
@@ -45,19 +35,3 @@ def align_vector(vec: np.ndarray, alignment: int) -> np.ndarray:
     out = np.zeros(padded, dtype=vec.dtype)
     out[: vec.shape[0]] = vec
     return out
-
-
-def pad_axis_to(arr: np.ndarray, axis: int, target: int) -> np.ndarray:
-    """Zero-pad `arr` along `axis` up to length `target` (no-op if equal)."""
-    cur = arr.shape[axis]
-    if cur == target:
-        return arr
-    if cur > target:
-        raise ValueError(f"axis {axis} has size {cur} > target {target}")
-    widths = [(0, 0)] * arr.ndim
-    widths[axis] = (0, target - cur)
-    return np.pad(arr, widths)
-
-
-def cdiv(a: int, b: int) -> int:
-    return -(-a // b)

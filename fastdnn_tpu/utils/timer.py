@@ -3,6 +3,7 @@
 The reference's only tracing is wall-clock prints (SURVEY.md §5).  Here:
   * `Throughput` — rolling audio-seconds/s and frames/s counters for serving
   * `trace` — context manager around jax.profiler for TensorBoard traces
+  * `device_kernel_events` — device kernel durations of one call, from a trace
   * `Timer` — the plain wall-clock the reference used, for CLIs
 """
 
@@ -79,3 +80,31 @@ def trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_kernel_events(fn) -> dict:
+    """Device kernels of one call of `fn` (which must return a JAX array):
+    {kernel name: [duration in ns, ...]} from a profiler trace of the GPU
+    planes.  `fn` runs once untraced first, so compilation stays out."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from jax.profiler import ProfileData
+
+    fn().block_until_ready()
+    d = tempfile.mkdtemp()
+    try:
+        with trace(d):
+            fn().block_until_ready()
+        events: dict = {}
+        for path in glob.glob(os.path.join(d, "plugins", "profile", "*", "*.xplane.pb")):
+            for plane in ProfileData.from_file(path).planes:
+                if plane.name.startswith("/device:GPU"):
+                    for line in plane.lines:
+                        for e in line.events:
+                            events.setdefault(e.name, []).append(e.duration_ns)
+        return events
+    finally:
+        shutil.rmtree(d, ignore_errors=True)

@@ -1,6 +1,6 @@
 // fastdnn_io — native host-side data plane for fastdnn_tpu.
 //
-// TPU-native equivalent of the reference's C++ model/feature loaders
+// The engine's equivalent of the reference's C++ model/feature loaders
 // (BinaryLoader/FloatDnn/BatchData, /root/reference/src/cpp/float_dnn.cc):
 // the compute path is JAX/Pallas, but bulk file parsing — big-endian
 // byte-swapping of multi-hundred-MB model/feature files — stays native for

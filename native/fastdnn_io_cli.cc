@@ -1,7 +1,7 @@
 // fastdnn-io — native host-side CLI over the fastdnn_io data plane.
 //
 // The reference ships a native executable for its host data path
-// (/root/reference/src/cpp/dnn.cc:20-84); scoring here happens on the TPU
+// (/root/reference/src/cpp/dnn.cc:20-84); scoring here happens on the GPU
 // via the Python engine, so the native CLI covers the pure host-side jobs:
 // inspecting and converting model/feature files without starting a Python
 // process.
@@ -18,7 +18,7 @@
 //                                          wire protocol, cli/serve.py) — the
 //                                          native analog of the reference's
 //                                          scoring executable (dnn.cc:20-84),
-//                                          with the DNN math on the TPU
+//                                          with the DNN math on the GPU
 //
 // Build: make -C native (produces native/fastdnn-io next to the .so).
 

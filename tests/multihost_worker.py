@@ -6,8 +6,8 @@ Launched once per process by tests/test_multihost.py:
 
 Each process owns 4 virtual CPU devices; jax.distributed.initialize wires
 them into one 8-device global mesh (2 "hosts" x 4 devices — the DP axis
-spans processes like DCN would, the model axis stays process-local like
-ICI).  Every process feeds its local shard of a deterministic frame batch
+spans processes like a network between hosts would, the model axis stays
+process-local like the cards of one host).  Every process feeds its local shard of a deterministic frame batch
 through the GSPMD scorer; process 0 writes the gathered posteriors for the
 driver test to compare against the single-process engine.
 """

@@ -1,9 +1,8 @@
 """Smoke tests for the bench harness itself (bench.py at the repo root).
 
-The headline numbers come from the real TPU; these tests only pin the
-harness mechanics on CPU: the chained-repetition marginal produces a
-finite positive rate, and the slice-only feedback used on the opaque
-pallas path scores the same posteriors as the consume-sum feedback.
+Its numbers come from a GPU run; these tests only pin the harness
+mechanics on CPU: the chained-repetition marginal produces a finite
+positive rate, and both feedback forms score full posteriors.
 """
 
 import os
@@ -66,28 +65,3 @@ def test_feedback_modes_score_full_posteriors(scorer):
         assert p.shape == (32, scorer.output_dim)
         assert np.isfinite(p).all()
         np.testing.assert_allclose(p.sum(1), 1.0, rtol=1e-4)
-
-
-def test_autotune_smoke(tmp_path):
-    """tools/autotune.py end to end on CPU (interpret): sweeps, prints the
-    JSON line, writes --out, and returns the shipped defaults untouched
-    when no candidate beats them (all-zero CPU device times)."""
-    import importlib.util
-    import json
-
-    spec = importlib.util.spec_from_file_location(
-        "fdn_autotune",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     "tools", "autotune.py"),
-    )
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    out = tmp_path / "tuned.json"
-    rc = mod.main([
-        "--hidden", "128", "--layers", "2", "--out-dim", "256",
-        "--batch", "256", "--reps", "1", "--out", str(out),
-    ])
-    assert rc == 0
-    got = json.loads(out.read_text())
-    assert got["knobs"]["block_frames"] > 0
-    assert got["net"] == "432-2x128-256"

@@ -80,39 +80,3 @@ class TestBeamDecoder:
     def test_lexicon_validation(self):
         with pytest.raises(ValueError):
             BeamDecoder(Lexicon(((1, 2, 999),)), 400)
-
-    def test_clustered_block_sparse_deployment_same_words(
-        self, small_net, scorer, decoder, frames
-    ):
-        """The full engine/cluster.py deployment story, end to end: derive
-        the senone-clustering permutation from sample traffic, permute the
-        MODEL once at load time, translate the lexicon's senone ids once,
-        and decode through lazy_mode='block_sparse' — the word sequence
-        must match the unpermuted dense decode exactly (posterior columns
-        are a pure relabeling; the search is id-blind)."""
-        from fastdnn_tpu.engine.cluster import (
-            inverse_permutation,
-            mask_cluster_permutation,
-            permute_output_layer,
-        )
-
-        base = decoder.decode_dense(scorer, frames)
-        perm = mask_cluster_permutation(base.masks)
-        inv = inverse_permutation(perm)
-
-        qnet = quantize_net(small_net)
-        sc_cl = Scorer(
-            permute_output_layer(qnet, perm),
-            EngineConfig(backend="pallas", interpret=True,
-                         lazy_mode="block_sparse"),
-        )
-        lex_cl = Lexicon(
-            tuple(tuple(int(inv[s]) for s in w) for w in decoder.lexicon.words)
-        )
-        dec_cl = BeamDecoder(
-            lex_cl, scorer.output_dim,
-            beam_width=decoder.beam_width,
-            word_exit_beam=decoder.word_exit_beam,
-        )
-        got = dec_cl.decode_rescore(sc_cl, frames, base.masks[:, perm])
-        assert got.words == base.words

@@ -141,8 +141,8 @@ class TestLazyMasked:
         cfg = scorer.config
         from fastdnn_tpu.engine.scorer import hidden_forward, output_logits
 
-        acts = hidden_forward(scorer.net, jnp.asarray(scorer._prepare(frames_16khz[:n])[0]), "xla", False)
-        logits = np.asarray(output_logits(scorer.net, acts, "xla", False))[:n]
+        acts = hidden_forward(scorer.net, jnp.asarray(scorer._prepare(frames_16khz[:n])[0]))
+        logits = np.asarray(output_logits(scorer.net, acts))[:n]
         z = np.where(masks != 0, logits, 0.0)
         e = np.exp(z - z.max(-1, keepdims=True))
         expected = e / e.sum(-1, keepdims=True)

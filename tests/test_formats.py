@@ -15,7 +15,6 @@ import pytest
 
 from fastdnn_tpu.formats import binary, kaldi_text
 
-DATA = "/root/reference/data"
 
 
 class TestBinaryFeatures:
@@ -23,15 +22,15 @@ class TestBinaryFeatures:
         assert features_16khz.shape == (100, 432)
         assert features_16khz.dtype == np.float32
 
-    def test_8khz_bin(self, features_8khz):
+    def test_8khz_bin(self, sample_data, features_8khz):
         assert features_8khz.shape == (389, 432)
         # file is size-exact: 8 byte header + 389*432*4
-        assert os.path.getsize(os.path.join(DATA, "8khz.aligned.bin")) == 8 + 389 * 432 * 4
+        assert os.path.getsize(sample_data["8khz.aligned.bin"]) == 8 + 389 * 432 * 4
 
-    def test_16khz_bin_matches_text_source(self, features_16khz):
+    def test_16khz_bin_matches_text_source(self, sample_data, features_16khz):
         """16khz.bin was serialized from the 16khz text features aligned to
         x4 (FuncTest.generateAlignedInput); first 100 frames must agree."""
-        text = kaldi_text.first_utterance(os.path.join(DATA, "16khz"))
+        text = kaldi_text.first_utterance(sample_data["16khz"])
         assert text.shape == (193, 429)
         aligned = np.pad(text, ((0, 0), (0, 3)))
         np.testing.assert_array_equal(features_16khz, aligned[:100])
@@ -62,16 +61,16 @@ class TestBinaryFeatures:
 
 
 class TestKaldiText:
-    def test_16khz_text(self):
-        feats = kaldi_text.load_features_text(os.path.join(DATA, "16khz"))
+    def test_16khz_text(self, sample_data):
+        feats = kaldi_text.load_features_text(sample_data["16khz"])
         assert len(feats) == 1
         frames = next(iter(feats.values()))
         assert frames.shape == (193, 429)
         # 429 = 39-dim x 11-frame splice: first frame's leading block repeats
         np.testing.assert_array_equal(frames[0, :39], frames[0, 39:78])
 
-    def test_8khz_text(self):
-        feats = kaldi_text.load_features_text(os.path.join(DATA, "8khz"))
+    def test_8khz_text(self, sample_data):
+        feats = kaldi_text.load_features_text(sample_data["8khz"])
         frames = next(iter(feats.values()))
         assert frames.shape[0] == 389
 

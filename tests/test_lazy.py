@@ -55,9 +55,8 @@ class TestGatheredVsDense:
         np.testing.assert_allclose(gathered, dense, atol=2e-6)
 
     def test_auto_mode_resolves_to_dense(self, qnet, rng):
-        """Measured on v5e (BENCHMARKS.md): the dense masked output wins at
-        every batch size and density, so "auto" never dispatches gathered —
-        the gathered matmul runs only on explicit lazy_mode="gathered"."""
+        """"auto" never dispatches gathered — the gathered matmul runs only
+        on explicit lazy_mode="gathered" (config.lazy_mode)."""
         sc = Scorer(qnet, EngineConfig(backend="xla", lazy_mode="auto"))
         masks_small = masks_at_density(rng, 1, qnet.output_dim, 0.3)
         assert not sc._use_gathered(1, masks_small)
@@ -104,8 +103,8 @@ class TestGatheredVsDense:
 
 def test_fully_masked_frame_active_only_yields_zeros(qnet, features_16khz):
     """A frame whose mask has no active senones gets all-zero posteriors
-    under active_only semantics — identically on the XLA path and both
-    fused kernels (was NaN on XLA vs uniform on the fused path)."""
+    under active_only semantics — identically with and without the fused
+    hidden kernel."""
     import numpy as np
 
     from fastdnn_tpu.config import EngineConfig
@@ -126,49 +125,21 @@ def test_fully_masked_frame_active_only_yields_zeros(qnet, features_16khz):
         np.testing.assert_allclose(out[[0, 1, 3]].sum(-1), 1.0, rtol=1e-4)
 
 
-class TestBlockSparseEngine:
-    """End-to-end lazy_mode='block_sparse': the Scorer must route masked
-    calls through the tile-skipping kernels and match the dense engine."""
+class TestKernelBackendLazy:
+    """Masked scoring with the fused hidden kernel (interpret mode) must
+    match the XLA engine: the kernel changes only how the hidden layers
+    run, never the masked output layer."""
 
     @pytest.mark.parametrize("semantics", ["reference", "active_only"])
-    def test_matches_dense_engine(self, qnet, rng, semantics):
+    def test_matches_xla_engine(self, qnet, rng, semantics):
         frames = rng.standard_normal((64, 432)).astype(np.float32)
-        # block-structured decoder-like masks plus one dead frame
-        masks = np.zeros((64, qnet.output_dim), np.uint8)
-        for blk in range(2):
-            lo = 100 + 300 * blk
-            masks[blk * 32 : (blk + 1) * 32, lo : lo + 80] = (
-                rng.random((32, 80)) < 0.5
-            )
+        masks = (rng.random((64, qnet.output_dim)) < 0.4).astype(np.uint8)
         masks[5] = 0
-        dense = Scorer(
-            qnet,
-            EngineConfig(
-                backend="pallas", interpret=True, lazy_mode="dense",
-                lazy_semantics=semantics,
-            ),
+        xla = Scorer(
+            qnet, EngineConfig(backend="xla", lazy_semantics=semantics)
         ).score_masked(frames, masks)
-        sparse = Scorer(
+        kern = Scorer(
             qnet,
-            EngineConfig(
-                backend="pallas", interpret=True, lazy_mode="block_sparse",
-                lazy_semantics=semantics,
-            ),
+            EngineConfig(backend="pallas", interpret=True, lazy_semantics=semantics),
         ).score_masked(frames, masks)
-        np.testing.assert_allclose(sparse, dense, atol=3e-5)
-
-    def test_requires_pallas_fused(self, qnet):
-        with pytest.raises(ValueError, match="block_sparse"):
-            Scorer(qnet, EngineConfig(backend="xla", lazy_mode="block_sparse"))
-
-    def test_plain_scoring_unaffected(self, qnet, rng):
-        """Unmasked score() ignores lazy_mode (no masks, nothing to skip)."""
-        frames = rng.standard_normal((32, 432)).astype(np.float32)
-        a = Scorer(
-            qnet, EngineConfig(backend="pallas", interpret=True)
-        ).score(frames)
-        b = Scorer(
-            qnet,
-            EngineConfig(backend="pallas", interpret=True, lazy_mode="block_sparse"),
-        ).score(frames)
-        np.testing.assert_allclose(b, a, atol=1e-7)
+        np.testing.assert_allclose(kern, xla, atol=1e-6)

@@ -3,7 +3,8 @@ wired by jax.distributed into one 8-device mesh (the fake-pod validation
 the reference has no analog of; SURVEY.md §4).
 
 Each "host" owns half the data axis — the cross-process dimension plays
-the role of DCN, the in-process model axis the role of ICI.  The gathered
+the role of the network between hosts, the in-process model axis the role
+of one host's cards.  The gathered
 posteriors must match the plain single-process engine.
 """
 

@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DATA = "/root/reference/data"
 
 
 @pytest.fixture(scope="module")
@@ -38,9 +37,9 @@ def _numpy_read_features(path):
 
 
 class TestNativeIO:
-    def test_features_parity_with_numpy(self, native):
+    def test_features_parity_with_numpy(self, sample_data, native):
         for f in ["16khz.bin", "8khz.aligned.bin"]:
-            p = os.path.join(DATA, f)
+            p = sample_data[f]
             np.testing.assert_array_equal(native.read_features(p), _numpy_read_features(p))
 
     def test_model_roundtrip(self, native, tmp_path, rng):
@@ -88,11 +87,11 @@ class TestNativeIO:
         with pytest.raises(ValueError):
             native.read_model(bad)
 
-    def test_dispatch_through_binary_module(self, native):
+    def test_dispatch_through_binary_module(self, sample_data, native):
         """formats.binary transparently uses the native reader for paths."""
         from fastdnn_tpu.formats.binary import read_features
 
-        a = read_features(os.path.join(DATA, "16khz.bin"))
+        a = read_features(sample_data["16khz.bin"])
         assert a.shape == (100, 432)
 
 
@@ -100,11 +99,11 @@ class TestNativeTextFeatures:
     """fd_read_features_text: Kaldi text features parsed natively
     (BatchData.loadMultipleFromText analog, BatchData.java:145-183)."""
 
-    def test_matches_python_parser_on_bundled_data(self, native):
+    def test_matches_python_parser_on_bundled_data(self, sample_data, native):
         from fastdnn_tpu.formats import kaldi_text
 
         for name in ("16khz", "8khz"):
-            path = os.path.join(DATA, name)
+            path = sample_data[name]
             got = native.read_features_text(path)
             with open(path) as f:
                 ref = kaldi_text.parse_features_text(f.read())
@@ -199,10 +198,10 @@ class TestNativeTextFeatures:
             for k in want:
                 np.testing.assert_array_equal(got[k], want[k], err_msg=text)
 
-    def test_dispatch_through_kaldi_text_module(self, native):
+    def test_dispatch_through_kaldi_text_module(self, sample_data, native):
         from fastdnn_tpu.formats.kaldi_text import load_features_text
 
-        feats = load_features_text(os.path.join(DATA, "16khz"))
+        feats = load_features_text(sample_data["16khz"])
         assert next(iter(feats.values())).shape == (193, 429)
 
 
@@ -225,29 +224,29 @@ class TestNativeCli:
                 pytest.skip("native CLI not built")
         return path
 
-    def test_info_and_finfo(self, cli):
+    def test_info_and_finfo(self, sample_data, cli):
         import subprocess
 
         golden = os.path.join(DATA_REPO, "tests", "golden", "parity_model.bin")
         out = subprocess.run([cli, "info", golden], capture_output=True, text=True)
         assert out.returncode == 0
         assert "topology= 432-64-64-64-100" in out.stdout
-        out = subprocess.run([cli, "finfo", os.path.join(DATA, "8khz.aligned.bin")],
+        out = subprocess.run([cli, "finfo", sample_data["8khz.aligned.bin"]],
                              capture_output=True, text=True)
         assert "frames = 389" in out.stdout and "dim    = 432" in out.stdout
 
-    def test_text2bin_matches_python(self, cli, tmp_path):
+    def test_text2bin_matches_python(self, sample_data, cli, tmp_path):
         import subprocess
 
         from fastdnn_tpu.formats.binary import read_features
         from fastdnn_tpu.formats.kaldi_text import first_utterance
 
         out_bin = tmp_path / "16khz.bin"
-        r = subprocess.run([cli, "text2bin", os.path.join(DATA, "16khz"), str(out_bin)],
+        r = subprocess.run([cli, "text2bin", sample_data["16khz"], str(out_bin)],
                            capture_output=True, text=True)
         assert r.returncode == 0, r.stderr
         got = read_features(out_bin)
-        ref = first_utterance(os.path.join(DATA, "16khz")).astype(np.float32)
+        ref = first_utterance(sample_data["16khz"]).astype(np.float32)
         np.testing.assert_array_equal(got, ref)
 
     def test_bad_usage(self, cli):
@@ -309,11 +308,11 @@ class TestNativeFuzz:
     def test_model_parser_fuzz(self, native, tmp_path, model_bytes):
         self._fuzz(native, tmp_path, model_bytes, native.read_model)
 
-    def test_feature_parser_fuzz(self, native, tmp_path):
-        data = open(os.path.join(DATA, "8khz.aligned.bin"), "rb").read()
+    def test_feature_parser_fuzz(self, sample_data, native, tmp_path):
+        data = open(sample_data["8khz.aligned.bin"], "rb").read()
         self._fuzz(native, tmp_path, data, native.read_features)
 
-    def test_text_feature_parser_fuzz(self, native, tmp_path):
+    def test_text_feature_parser_fuzz(self, sample_data, native, tmp_path):
         """Truncation/corruption fuzz: the native parser must never crash,
         and the mirroring Python parser must AGREE on every fuzzed file —
         identical utterances/matrices on accept, rejection on reject (the
@@ -321,7 +320,7 @@ class TestNativeFuzz:
         not just crash-freedom)."""
         from fastdnn_tpu.formats import kaldi_text
 
-        data = open(os.path.join(DATA, "16khz"), "rb").read()
+        data = open(sample_data["16khz"], "rb").read()
 
         rng = np.random.default_rng(1)
         path = tmp_path / "fuzzed.txt"
@@ -469,10 +468,10 @@ class TestParserAgreement:
             for k in n_out:
                 np.testing.assert_array_equal(n_out[k], p_out[k])
 
-    def test_mutation_fuzz_agreement(self, native, tmp_path):
+    def test_mutation_fuzz_agreement(self, sample_data, native, tmp_path):
         """Random byte mutations/truncations of the bundled text features:
         both parsers must keep agreeing (parse-equal or both-reject)."""
-        data = open(os.path.join(DATA, "16khz"), "rb").read()
+        data = open(sample_data["16khz"], "rb").read()
         rng = np.random.default_rng(7)
         agreements = {"both_ok": 0, "both_reject": 0}
         for t in range(24):

@@ -158,10 +158,10 @@ class TestSerialization:
         )
 
     def test_roundtrip_preserves_true_output_dim(self, small_net, tmp_path):
-        from fastdnn_tpu.quant.quantize import pad_qnet_for_tpu
+        from fastdnn_tpu.quant.quantize import pad_qnet
         from fastdnn_tpu.quant.serialize import load_qnet, save_qnet
 
-        padded = pad_qnet_for_tpu(quantize_net(small_net), out_lanes=256)
+        padded = pad_qnet(quantize_net(small_net), out_lanes=256)
         path = tmp_path / "padded.qnet.npz"
         save_qnet(padded, path)
         back = load_qnet(path)
@@ -186,8 +186,8 @@ class TestSerialization:
 
 
 class TestInt4Trunk:
-    """int4 hidden-trunk quantization (TPU extension; no reference analog —
-    the MXU consumes s4 natively, halving weight bytes).  The output layer
+    """int4 hidden-trunk quantization (an extension; no reference analog —
+    XLA packs s4 weights two per byte, halving weight bytes).  The output layer
     must stay int8 and accuracy must clear the reference's own float-oracle
     gate (FuncTest.java:70-72: summed |d| per node <= 0.1 over 100 frames)."""
 
@@ -246,8 +246,8 @@ class TestInt4Trunk:
             )
 
     def test_packed_trunk_is_pure_storage(self, small_net):
-        """EngineConfig.int4_packed (the no-native-s4 contingency,
-        quant.quantize.pack_int4_trunk): nibble-packed storage + in-kernel
+        """EngineConfig.int4_packed (the no-native-s4 alternative,
+        quant.quantize.pack_int4_trunk): nibble-packed storage + in-program
         unpack is bitwise-identical to the jnp.int4 trunk — hidden
         activations equal exactly (integer math), posteriors equal across
         xla/pallas-interpret at the suite's bound."""
@@ -308,7 +308,7 @@ class TestInt4Trunk:
         from fastdnn_tpu.parallel import mesh as pmesh
         from fastdnn_tpu.quant.quantize import (
             pack_int4_trunk,
-            pad_qnet_for_tpu,
+            pad_qnet,
         )
         from fastdnn_tpu.quant.serialize import save_qnet
 
@@ -323,9 +323,9 @@ class TestInt4Trunk:
         ).score(frames)
         np.testing.assert_allclose(got, ref, atol=3e-5)
 
-        packed = pack_int4_trunk(pad_qnet_for_tpu(q4))
+        packed = pack_int4_trunk(pad_qnet(q4, lanes=128))
         with pytest.raises(ValueError, match="pad before packing"):
-            pad_qnet_for_tpu(packed)
+            pad_qnet(packed)
         with pytest.raises(ValueError, match="unpacked"):
             save_qnet(packed, "/tmp/never-written.npz")
         # int8 nets pass through the transform untouched
@@ -352,34 +352,11 @@ class TestInt4Trunk:
         assert "int8" in load_quantized(str(p8))[1]
 
     def test_padding_preserves_dtype(self, small_net):
-        from fastdnn_tpu.quant.quantize import pad_qnet_for_tpu
+        from fastdnn_tpu.quant.quantize import pad_qnet
 
-        q4 = pad_qnet_for_tpu(quantize_net(small_net, hidden_bits=4))
+        q4 = pad_qnet(quantize_net(small_net, hidden_bits=4), lanes=128)
         for w in q4.weights[:-1]:
             assert w.dtype == jnp.int4
-
-    def test_composes_with_block_sparse_lazy(self, small_net):
-        """int4 trunk changes the hidden layers only; the block-sparse lazy
-        OUTPUT path must run unchanged on top of it and match the dense
-        masked engine on the same int4 net."""
-        from fastdnn_tpu.config import EngineConfig
-        from fastdnn_tpu.engine.scorer import Scorer
-
-        q4 = quantize_net(small_net, hidden_bits=4)
-        rng = np.random.default_rng(11)
-        frames = rng.standard_normal((64, q4.input_dim)).astype(np.float32)
-        masks = np.zeros((64, q4.output_dim), np.uint8)
-        masks[:32, 40:160] = rng.random((32, 120)) < 0.5
-        masks[32:, 280:360] = rng.random((32, 80)) < 0.5
-        masks[7] = 0  # dead frame exercises the zero-row guard
-        dense = Scorer(
-            q4, EngineConfig(backend="pallas", interpret=True, lazy_mode="dense")
-        ).score_masked(frames, masks)
-        sparse = Scorer(
-            q4,
-            EngineConfig(backend="pallas", interpret=True, lazy_mode="block_sparse"),
-        ).score_masked(frames, masks)
-        np.testing.assert_allclose(sparse, dense, atol=3e-5)
 
     def test_composes_with_mesh(self, small_net):
         """int4 weights shard over a ("data","model") mesh like int8 ones:

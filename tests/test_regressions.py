@@ -12,8 +12,9 @@ from fastdnn_tpu.quant.quantize import quantize_net
 
 def test_lazy_context_dense_path_single_row_pallas(small_net, rng):
     """LazyContext on the pallas backend used to crash in dense mode: the
-    per-frame path scored a [1, K] batch that failed the kernel's B % 32
-    check.  Single rows are now padded inside the masked-logits path."""
+    per-frame path scored a [1, K] batch that failed a kernel's batch
+    multiple check.  The single-row output path must match the batched
+    masked path."""
     qnet = quantize_net(small_net)
     sc = Scorer(qnet, EngineConfig(backend="pallas", interpret=True, lazy_mode="dense"))
     frames = rng.standard_normal((3, sc.input_dim)).astype(np.float32)
@@ -221,27 +222,3 @@ def test_serve_unknown_op_no_hang(small_net, tmp_path):
     finally:
         srv.shutdown()
         srv.stream.close()
-
-
-def test_resident_gate_charges_block_sparse_scratch():
-    """uses_resident_output must mirror each kernel's own VMEM request: the
-    resident BLOCK-SPARSE kernel keeps an extra [bm, n] f32 logits scratch
-    (4*bm*n bytes) the dense resident kernel does not, so for output
-    shapes near the 100 MB clamp the gate must flip to the stats fallback
-    for block-sparse while still allowing dense (review finding r3: the
-    shared gate could select a block-sparse kernel that cannot compile)."""
-    from types import SimpleNamespace
-
-    import numpy as np
-
-    from fastdnn_tpu.engine.scorer import uses_resident_output
-
-    # k=2048, n=15360, bm=256: dense working set ~72 MB (fits the 80 MB
-    # effective budget), block-sparse adds 4*256*15360 ~ 15 MB (does not)
-    net = SimpleNamespace(weights=[np.zeros((2048, 15360), np.int8)])
-    assert uses_resident_output(net, 256)
-    assert not uses_resident_output(net, 256, block_sparse=True)
-    # far from the boundary both agree
-    small = SimpleNamespace(weights=[np.zeros((2048, 8192), np.int8)])
-    assert uses_resident_output(small, 256)
-    assert uses_resident_output(small, 256, block_sparse=True)

@@ -1,7 +1,7 @@
 """Streaming engine + scoring server tests (CPU backend).
 
 The reference's serving model is thread-per-caller over JNI
-(/root/reference/test/java/suskun/nn/MultiThreadedStressTest.java); the TPU
+(/root/reference/test/java/suskun/nn/MultiThreadedStressTest.java); the
 replacement batches across callers.  These tests verify: per-utterance
 results identical to direct Scorer calls, cross-thread batching, masked
 submissions, error propagation, and the TCP protocol end to end.
@@ -88,7 +88,7 @@ class TestStreamingScorer:
         utterance per device dispatch (mean batch fill > one utterance's
         frames, batches < utterances) — the serving economics the whole
         streaming design exists for.  tools/bench_serve.py measures the
-        same number under real TCP load on the TPU."""
+        same number under real TCP load on the GPU."""
         utts = rand_utts(rng, 48, scorer.input_dim, lo=8, hi=16)
         with StreamingScorer(scorer, max_batch_frames=4096, max_wait_ms=80.0) as ss:
             barrier = threading.Barrier(8)
@@ -199,31 +199,24 @@ class TestScoreServer:
             want = sc.score_masked(frames, masks)
             np.testing.assert_allclose(got, want, atol=2e-6)
 
-    def test_masked_streaming_block_sparse(self, small_net, rng):
-        """StreamingScorer over a block-sparse Scorer (the --lazy-mode
-        block_sparse serving path): cross-utterance masked batching must
-        resolve per-utterance results identical to direct dense scoring."""
+    def test_masked_streaming_kernel_backend(self, small_net, rng):
+        """StreamingScorer over a Scorer with the fused hidden kernel
+        (interpret mode): cross-utterance masked batching must resolve
+        per-utterance results identical to direct XLA scoring."""
         from fastdnn_tpu.engine.stream import StreamingScorer
 
         qnet = quantize_net(small_net)
-        sc_bs = Scorer(
-            qnet,
-            EngineConfig(
-                backend="pallas", interpret=True, lazy_mode="block_sparse"
-            ),
-        )
+        sc_k = Scorer(qnet, EngineConfig(backend="pallas", interpret=True))
         oracle = Scorer(qnet, EngineConfig(backend="xla"))
         utts = rand_utts(rng, 3, 432)
         masks = [
             (rng.random((u.shape[0], 400)) < 0.3).astype(np.uint8) for u in utts
         ]
-        with StreamingScorer(sc_bs, max_batch_frames=256) as ss:
+        with StreamingScorer(sc_k, max_batch_frames=256) as ss:
             futs = [ss.submit(u, m) for u, m in zip(utts, masks)]
             got = [f.result(120) for f in futs]
         for g, u, m in zip(got, utts, masks):
-            np.testing.assert_allclose(
-                g, oracle.score_masked(u, m), atol=3e-5
-            )
+            np.testing.assert_allclose(g, oracle.score_masked(u, m), atol=1e-6)
 
     def test_oversized_dim_rejected_before_payload(self, server, scorer):
         """A request declaring dim > the model's input width used to be
